@@ -1,8 +1,7 @@
 """topotpu quickstart: library-level use of the interpolation engine.
 
-Runs on whatever backend is available (the real TPU here; force CPU with
-jax.config.update("jax_platforms", "cpu") if needed — see CLAUDE.md for
-this container's environment rules).
+Runs on whatever backend is available (a GPU when there is one; force
+the CPU with JAX_PLATFORMS=cpu). Writes HDF5, so it needs h5py.
 
     python examples/quickstart.py
 """

@@ -482,7 +482,6 @@ def test_cli_xval_infill_per_variable(tmp_path, capsys):
         r = out["result"][var]
         assert r["n_holdout"] > 0
         # 40-station fixture: tmax carries 1.5 C iid obs noise on top of
-        # the sparse-network error (production scale measures 0.298 C at
-        # 4k stations — RESULTS.md round 5); this is a wiring check
+        # the sparse-network error; this is a wiring check
         assert r["mae"] < 3.0
         assert abs(r["bias"]) < 0.5

@@ -513,7 +513,7 @@ def test_streamed_validate_unsampled_corruption_needs_deep(tmp_path, setup):
 
 def test_streamed_validate_exact_cross_chunk_coverage(tmp_path, setup,
                                                       monkeypatch):
-    """Coverage across chunks is EXACT (VERDICT r4 #4 / old KNOWN_GAPS #6):
+    """Coverage across chunks is EXACT:
     cell A uncovered only in chunk 1 and cell B uncovered only in chunk 2
     must BOTH count as uncovered (the old min-over-chunks bound saw one).
     Partial chunks carry per-cell bitmaps; validate ANDs them, agrees with

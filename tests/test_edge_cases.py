@@ -61,22 +61,6 @@ def test_colocated_stations_survive(rng):
     assert np.isfinite(np.asarray(res.se)).all()
 
 
-def test_fused_kernel_other_k_sizes(rng):
-    """Kernel must compile/agree for non-default neighborhood sizes."""
-    from topotpu.interp.normals import krig_normals
-    from tests.test_normals_fused import _gathered_inputs
-
-    # k=64 exercises the uniform-shape factorization variant
-    for k in (8, 24, 48, 64):
-        args = _gathered_inputs(rng, C=16, k=k)
-        ref = krig_normals(**args, use_pallas="off")
-        got = krig_normals(**args, use_pallas="on")
-        np.testing.assert_allclose(
-            np.asarray(got.normal), np.asarray(ref.normal),
-            rtol=1e-4, atol=2e-3,
-        )
-
-
 def test_interp_points_facade(rng):
     # The reference's PtInterpTair interpolated arbitrary points; the
     # facade must reproduce station values when asked to predict AT

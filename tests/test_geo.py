@@ -81,7 +81,7 @@ def test_exclude_self(rng):
 
 
 def test_exclude_idx_matches_threshold_loo(rng):
-    """Identity-index LOO (cheap MXU cos branch) must select the same
+    """Identity-index LOO (cheap cos-matmul branch) must select the same
     neighborhoods as the legacy km-threshold LOO (exact-distance branch) —
     the branch swap that removed the (S, S) exact-trig program from the
     krig-params / x-val drivers must be a pure mechanism change."""

@@ -166,7 +166,7 @@ def test_homogenize_ignores_trend_contamination(daily_network):
     # A gradually drifting station (urbanization-style trend) must NOT be
     # step-adjusted: SNHT fires on the drift and the quorum attributes it,
     # but the minbic model stage classifies every pair window as trend-only
-    # and refuses the step. (VERDICT round-1 item 6.)
+    # and refuses the step.
     world, days, daily = daily_network
     daily = daily.copy()
     drift = np.linspace(0.0, 2.5, daily.shape[1]).astype(np.float32)

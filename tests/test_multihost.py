@@ -97,9 +97,8 @@ def rig(tmp_path_factory):
 
 def _worker_env():
     env = dict(os.environ)
-    env["TOPOTPU_PLATFORM"] = "cpu"  # read by cli.main before device use
+    env["JAX_PLATFORMS"] = "cpu"
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
-    env.setdefault("JAX_COMPILATION_CACHE_DIR", str(REPO / ".jax_cache"))
     return env
 
 
@@ -377,8 +376,8 @@ def test_two_process_direct_mosaic_virtual_master(tmp_path_factory):
 
 def test_two_process_chunked_direct_mosaic(tmp_path_factory):
     """Multi-host x CHUNKED x direct-to-mosaic — the exact combination a
-    full-span production run on a 2-host v5e-8 uses (VERDICT r4 #3: the
-    direct-VDS test above is unchunked and the chunked test ran per-tile).
+    full-span production run on two hosts uses (the direct-VDS test above
+    is unchunked and the chunked test runs per-tile).
     Each process writes per-chunk day ranges at their time offsets into its
     own FULL-SPAN shard; the mosaic stage publishes VDS masters; validate
     is green; and the masters are bitwise identical to a single-process

@@ -45,9 +45,9 @@ def test_ushcn_compare_adjustments():
 
 
 def test_device_trace_captures_and_summarizes(tmp_path):
-    """bench.py --trace path: device_trace must produce a perfetto trace
-    that _trace_summary can aggregate into a device-time breakdown (the
-    hook was dead code in round 3 — this keeps it exercised)."""
+    """bench.py --trace-dir path: device_trace must produce a perfetto
+    trace that _trace_summary can aggregate into an event-time breakdown
+    (keeps the hook exercised)."""
     import jax
     import jax.numpy as jnp
 

@@ -1,6 +1,7 @@
-"""topotpu — TPU-native topoclimatic temperature engine.
+"""topotpu — topoclimatic temperature engine on JAX.
 
-A from-scratch, TPU-first (JAX/XLA/Pallas) framework with the capabilities of
+A from-scratch, batched JAX/XLA framework (run on NVIDIA GPUs) with the
+capabilities of
 TopoWx (reference: jaredwo/topowx): serially-complete homogenized station
 temperature data and 30-arcsecond gridded daily tmin/tmax with kriging-variance
 uncertainty for CONUS.
@@ -9,7 +10,7 @@ Reference provenance: the reference mount was empty at survey time; component
 parity targets come from SURVEY.md (symbol-level pointers like
 ``twx/interp/interp_tair.py::KrigTair``) and BASELINE.json's north-star spec.
 
-Layer map (mirrors SURVEY.md §1, rebuilt TPU-first):
+Layer map (mirrors SURVEY.md §1, rebuilt as batched device programs):
 
 ====  =======================  ==========================================
 ref   reference layer          topotpu equivalent
@@ -23,7 +24,7 @@ L5    tiling / grid output     ``topotpu.interp.tile`` + ``topotpu.dist``
 L6    bin/step*.py scripts     ``topotpu.cli``
 X1    mpi4py task farm         ``topotpu.dist`` (Mesh + shard_map)
 X2    rpy2/R gstat bridge      deleted; ``topotpu.stats.variogram`` +
-                               ``topotpu.kernels`` (batched JAX/Pallas)
+                               ``topotpu.kernels`` (batched JAX + CUDA)
 ====  =======================  ==========================================
 """
 

@@ -616,14 +616,7 @@ def step_point(cfg: TopoConfig, lonlat, out_dir: str | None = None) -> dict:
     tdi = rasters.tdi[rows, cols]
     lst = rasters.lst[:, rows, cols].T  # (N, 12)
 
-    # pad the point batch so the fused TPU kernels see a lane-aligned cell
-    # count (interp_tile's Pallas path wants multiples of 512; padded
-    # points repeat site 0 and are dropped after)
     N = len(lon)
-    pad = (-N) % 512
-    def _pad(a):
-        return np.concatenate([a, np.repeat(a[:1], pad, axis=0)], axis=0) \
-            if pad else a
 
     out_root = pathlib.Path(out_dir) if out_dir else p["root"]
     out_root.mkdir(parents=True, exist_ok=True)
@@ -635,15 +628,14 @@ def step_point(cfg: TopoConfig, lonlat, out_dir: str | None = None) -> dict:
             continue
         stations = _station_set(path, days)
         res, layout = interp_points(
-            _pad(lon), _pad(lat), _pad(elev), _pad(tdi), _pad(lst),
-            stations, days, cfg.interp,
+            lon, lat, elev, tdi, lst, stations, days, cfg.interp,
         )
-        normal = np.asarray(res.normal)[:, :N]        # (12, N)
-        se = np.asarray(res.se)[:, :N]
-        ok = np.asarray(res.ok)[:, :N] & ~off_land[None, :]
+        normal = np.asarray(res.normal)               # (12, N)
+        se = np.asarray(res.se)
+        ok = np.asarray(res.ok) & ~off_land[None, :]
         daily = ungroup_days(
             np.asarray(res.daily).transpose(1, 0, 2), layout
-        )[:N]                                          # (N, ndays)
+        )                                              # (N, ndays)
         normal = np.where(ok, normal, np.nan)
         se = np.where(ok, se, np.nan)
         daily = np.where(ok.all(0)[:, None], daily, np.nan)
@@ -855,8 +847,8 @@ def step_aggregate(cfg: TopoConfig) -> dict:
 
 def _validate_streamed(cfg: TopoConfig, p, rasters) -> dict | None:
     """Fast validate from the engine's streamed write-verification stats
-    (VERDICT r3: the full post-hoc scan was the single largest stage at
-    north-star scale — 813.7 s vs interp's 680 s). The writer thread
+    (the full post-hoc scan re-reads the whole product and was the largest
+    stage at north-star scale). The writer thread
     already read every tile back through the HDF5 layer and recorded
     covered/normal/se cell counts and the raw cross-variable re-check in
     the manifest; this aggregates those and spot-checks a deterministic

@@ -4,7 +4,7 @@ Parity target: ``twx/utils/util_dates.py::get_days_metadata`` (SURVEY.md §2.17)
 — a struct of YMD/YDAY/MONTH/YEAR arrays for a date range, used everywhere the
 pipeline needs day->month mapping (daily-anomaly recombination, infill windows).
 
-TPU-first note: this is host-side metadata; the device-facing products are the
+Note: this is host-side metadata; the device-facing products are the
 small integer arrays (``month_idx``, ``year``) that index static-shape day axes.
 """
 

@@ -4,7 +4,7 @@ Parity target: the 30-arcsecond CONUS output grid + fixed tiling of the
 reference's gridded production step (SURVEY.md §2.15, tiling classes in
 ``twx/interp/`` + ``bin/mpi_interp_tair.py``).
 
-TPU-first design: tiles are the unit of device work. A tile is a fixed
+Design: tiles are the unit of device work. A tile is a fixed
 (tile_rows x tile_cols) block of cells — static shapes so every tile compiles
 once. Partial edge tiles are padded and masked, never shape-specialized.
 """

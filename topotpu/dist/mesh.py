@@ -4,14 +4,14 @@ Parity target: the reference's entire distributed backend — the mpi4py
 master/worker task farm of ``bin/mpi_*.py`` (SURVEY.md §2 X1: rank 0 hands
 out tile ids over send/recv, rank 1 writes, ranks >=2 loop work items).
 
-TPU-native replacement (SURVEY.md §2 parallelism checklist):
+Replacement (SURVEY.md §2 parallelism checklist):
 
 * one ``jax.sharding.Mesh`` over all local devices, single axis ``cells``;
 * a tile's cell batch is sharded over that axis with ``shard_map``; the
   station pool, being tiny (~KBs), is **replicated** on every device, so the
-  hot path has ZERO cross-device collectives by construction — the TPU
-  analogue of the reference's embarrassingly parallel station farm, but with
-  the parallelism *inside* one XLA program riding ICI instead of MPI;
+  hot path has ZERO cross-device collectives by construction — the
+  reference's embarrassingly parallel station farm, with the parallelism
+  *inside* one XLA program instead of across MPI ranks;
 * multi-host (DCN) scale-out would wrap the same program in
   ``jax.distributed.initialize`` + a global mesh; tiles simply shard a
   bigger cell axis.
@@ -26,15 +26,11 @@ import functools
 
 import jax
 import numpy as np
+from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from topotpu.core.config import InterpParams
 from topotpu.interp.point import TileInputs, interp_tile
-
-try:  # jax >= 0.6 stabilized shard_map at the top level
-    shard_map = jax.shard_map
-except AttributeError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map  # type: ignore
 
 CELL_AXIS = "cells"
 
@@ -159,7 +155,7 @@ def sharded_interp_tile_pair_flat(
     Same collective-free sharding story; neighborhoods, GWR gains and the
     daily scatter are computed once and shared across the two variables
     (interp.point._interp_tile_multi), and the whole two-variable product
-    leaves the device as ONE flat int16 buffer (one fetch RPC).
+    leaves the device as ONE flat int16 buffer (one fetch).
     Returns ``fn(PairTileInputs, slot_of_day) -> FlatTileResult`` with
     buf (2*(ndays+24), C) and scales (12,).
 

@@ -2,11 +2,10 @@
 
 Parity target: the reference ran its mpi4py task farm across cluster nodes
 (SURVEY.md §2 X1 — rank 0 handing out tile ids over send/recv, a writer
-rank serializing output). The TPU-native translation keeps the *shape* of
-that design but moves the parallelism boundaries to where TPU systems put
-them:
+rank serializing output). The translation keeps the *shape* of that design
+but moves the parallelism boundaries to where accelerator hosts put them:
 
-* **within a host**: one SPMD program over the local chip mesh (ICI) — see
+* **within a host**: one SPMD program over the local device mesh — see
   ``dist.mesh``; zero collectives in the hot path (stations replicated).
 * **across hosts (DCN)**: tiles are *statically* partitioned by
   ``tile_id % process_count`` — no dynamic master/worker queue, because the
@@ -64,8 +63,8 @@ def init_multihost(
 ) -> MultihostContext:
     """Wire up jax.distributed and return this process's context.
 
-    With no arguments on a TPU pod, jax auto-configures from the metadata
-    server; on CPU/localhost test rigs pass all three explicitly. A
+    Pass all three explicitly (GPU hosts and CPU/localhost test rigs
+    have no cluster metadata to auto-configure from). A
     (num_processes or 1) == 1 call skips jax.distributed entirely — the
     single-process path must not require a coordination service.
     """

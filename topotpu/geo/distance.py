@@ -1,10 +1,10 @@
-"""Great-circle distances, batched for TPU.
+"""Great-circle distances, batched for the device.
 
 Parity target: the distance computations backing
 ``twx/interp/station_select.py::StationSelect`` (SURVEY.md §2.10) — the
 reference computes per-point station distances with a haversine-style formula
 on host numpy; here they are jittable and batched (cells x stations), which is
-the shape the tile engine feeds the VPU.
+the shape the tile engine feeds the device.
 
 All inputs in degrees; outputs in kilometres.
 """
@@ -41,8 +41,8 @@ def pairwise_great_circle_km(lon_a, lat_a, lon_b, lat_b):
     nearby points: absolute error is ~2 m in f32 at any separation. The dot
     form was measured to lose ~km-scale accuracy under JAX's default reduced
     matmul precision and is unusable for <10 km station spacing; this op is
-    bandwidth-bound either way (a few FLOPs per pair), so the MXU loses
-    nothing (see tests/test_geo.py precision checks).
+    bandwidth-bound either way (a few FLOPs per pair), so skipping the
+    matmul loses nothing (see tests/test_geo.py precision checks).
     """
     pa = _unit_xyz(lon_a, lat_a)  # (A, 3)
     pb = _unit_xyz(lon_b, lat_b)  # (B, 3)
@@ -59,7 +59,7 @@ def pairwise_km_from_xyz(xyz_a, xyz_b):
     """(..., A, 3) x (..., B, 3) -> (..., A, B) great-circle km.
 
     Stable chord-difference form (see pairwise_great_circle_km). The three
-    broadcasted difference planes fuse into one VPU pass under XLA.
+    broadcasted difference planes fuse into one elementwise pass under XLA.
     """
     d2 = None
     for i in range(3):

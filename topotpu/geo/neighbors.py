@@ -2,9 +2,9 @@
 
 Parity target: ``twx/interp/station_select.py::StationSelect`` (SURVEY.md
 §2.10). The reference grows a search radius per point until ``nnghs`` stations
-are found, one point at a time, on host. Rebuilt TPU-first:
+are found, one point at a time, on host. Rebuilt for batched devices:
 
-* one (cells x stations) distance matrix per tile (MXU matmul on unit-sphere
+* one (cells x stations) distance matrix per tile (one matmul on unit-sphere
   embeddings, see ``geo.distance``),
 * ``jax.lax.top_k`` for the k nearest — a fixed k so every tile shares one
   compiled shape (the SURVEY §7 static-shape commitment),
@@ -23,9 +23,14 @@ from typing import NamedTuple
 import jax.numpy as jnp
 from jax import lax
 
-from topotpu.geo.distance import great_circle_km, pairwise_great_circle_km
+from topotpu.geo.distance import (
+    pairwise_great_circle_km,
+    pairwise_km_from_xyz,
+    unit_xyz,
+)
 
 _INF = jnp.inf
+_RERANK = 8  # cos-branch candidates beyond k, re-ranked by exact distance
 
 
 class Neighborhood(NamedTuple):
@@ -66,10 +71,10 @@ def select_neighbors(
         own neighborhood. The leave-one-out mode used when the queries ARE
         the station pool (cross-validation and the per-station
         variogram-parameter build, SURVEY.md §3.3): identity is known by
-        index, so no metric resolution is needed and the cheap MXU cos
+        index, so no metric resolution is needed and the cheap cos-matmul
         branch stays usable — the exact (S, S) trig program the km-threshold
-        form forces is the superlinear cost at 10^4 stations (RESULTS.md
-        config #7).
+        form forces grows superlinearly with the network (config #7 runs
+        10^4 stations).
 
     Returns a Neighborhood with masked padding where fewer than k valid
     stations exist.
@@ -84,18 +89,21 @@ def select_neighbors(
     )
     if cos_matrix is not None or (dist_matrix is None and exclude_self_km == 0.0):
         # Cheap selection metric: cosine similarity on the unit-sphere
-        # embedding — one MXU matmul instead of 33M trig evaluations.
-        # Ordering by cos == ordering by distance; meter-scale f32 ordering
-        # fuzz between near-duplicate stations is harmless for SELECTION
-        # (exact distances are recomputed below for the chosen k). The
-        # exclude_self mode needs exact metric resolution at ~1 m, which f32
-        # cos near 1.0 cannot provide — that mode takes the exact branch.
+        # embedding — one matmul instead of 33M trig evaluations. Near
+        # 1.0, f32 cos resolves distance only to ~100 m at tens of km, so
+        # cos picks k + _RERANK candidates and the exact chord distance of
+        # the exact branch ranks them: the neighborhoods are those of the
+        # exact branch. The exclude_self mode needs metric resolution at
+        # ~1 m over the whole pool — that mode takes the exact branch.
+        pa = unit_xyz(cell_lon, cell_lat)
+        pb = unit_xyz(stn_lon, stn_lat)
         if cos_matrix is None:
-            from topotpu.geo.distance import unit_xyz
-
-            pa = unit_xyz(cell_lon, cell_lat)
-            pb = unit_xyz(stn_lon, stn_lat)
-            cos_matrix = jnp.dot(pa, pb.T, preferred_element_type=jnp.float32)
+            # HIGHEST: a TF32 dot (~1e-3 relative) is coarser than 1 - cos
+            # between stations 100 km apart (~1.2e-4).
+            cos_matrix = jnp.dot(
+                pa, pb.T, preferred_element_type=jnp.float32,
+                precision=lax.Precision.HIGHEST,
+            )
         score = jnp.where(stn_valid[None, :], cos_matrix, -jnp.inf)
         if exclude_idx is not None:  # identity-exclusion LOO (exact, cheap)
             score = jnp.where(
@@ -106,14 +114,15 @@ def select_neighbors(
             pad = jnp.full(score.shape[:-1] + (k - score.shape[-1],),
                            -jnp.inf, score.dtype)
             score = jnp.concatenate([score, pad], axis=-1)
-        top_score, idx = lax.top_k(score, k)
-        idx = jnp.minimum(idx, S - 1)
-        mask = jnp.isfinite(top_score)
-        # exact distances for the selected neighborhoods only (C, k)
-        dist = great_circle_km(
-            cell_lon[:, None], cell_lat[:, None],
-            jnp.take(stn_lon, idx), jnp.take(stn_lat, idx),
-        )
+        top_score, cand = lax.top_k(score, min(k + _RERANK, score.shape[-1]))
+        cand = jnp.minimum(cand, S - 1)
+        # exact distances for the candidates only (C, k + _RERANK)
+        d = pairwise_km_from_xyz(pa[:, None, :], jnp.take(pb, cand, axis=0))
+        d = jnp.where(jnp.isfinite(top_score), d[:, 0, :], _INF)
+        neg_top, order = lax.top_k(-d, k)
+        idx = jnp.take_along_axis(cand, order, axis=1)
+        dist = -neg_top
+        mask = jnp.isfinite(dist)
         dist = jnp.where(mask, dist, 0.0)
         return Neighborhood(idx=idx.astype(jnp.int32), dist=dist, mask=mask)
 

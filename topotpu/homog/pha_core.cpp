@@ -5,7 +5,7 @@
 // pairwise monthly difference series and estimate step adjustments. The
 // reference serializes its station DB to PHA's input tree and shells out;
 // here the detector is an in-process C library (host-side — this stage is
-// serial and data-small, not a TPU workload) driven from
+// serial and data-small, not a device workload) driven from
 // topotpu/homog/pha.py via ctypes.
 //
 // Implemented: batched SNHT (standard normal homogeneity test) changepoint

@@ -1,18 +1,18 @@
-"""Daily-anomaly GWR, restructured for the MXU.
+"""Daily-anomaly GWR, restructured as one matmul per month.
 
 Parity target: ``twx/interp/interp_tair.py::GwrTairAnom`` (SURVEY.md §2.13):
 per cell x day, geographically-weighted regression of station daily anomalies
 (obs - station monthly normal) on covariates. The reference runs a numpy
 lstsq per cell per day — hot loop #3 of SURVEY §3.1 (~25k days x 1e7 cells).
 
-TPU-first restructuring: the GWR design matrix and weights depend only on
+Batched restructuring: the GWR design matrix and weights depend only on
 (cell, month) geometry, never on the day. So the per-day solve collapses to a
 precomputed *gain row* g (see ``kernels.wls.batched_gwr_gain``):
 
     anom(cell, day) = sum_j g[cell, j] * anom_stn[idx[cell, j], day]
 
 Scattering each cell's k gains into a dense (cells x stations) matrix G turns
-an entire month of days into ONE matmul  G @ Y  — large, batched, MXU-shaped
+an entire month of days into ONE matmul  G @ Y  — large and batched
 (cells x stations x days), which is where this framework's speedup over the
 reference comes from.
 """
@@ -22,10 +22,10 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-# Solve-chain matmuls must run at full f32 fidelity: the TPU MXU default
-# (bf16 inputs) costs DEGREES of error in the WLS/kriging chain (measured
-# 2.5-8.9 C vs the CPU oracle on the jnp fallback path) while these ops are
-# FLOP-trivial next to the Pallas kernels. No-op on CPU.
+# Solve-chain products must run at full f32 fidelity: on the GPU, XLA may
+# compute an unpinned f32 dot in TF32 (about 1e-3 relative), which costs
+# degrees of error in the WLS/kriging chain, while these products are
+# FLOP-trivial. No-op on CPU.
 HI = jax.lax.Precision.HIGHEST
 
 
@@ -53,7 +53,7 @@ def scatter_gains(
     """Scatter (C, k) neighborhood gains into a dense (C, S) matrix.
 
     S is the (padded) tile station pool — a few hundred — so G is small and
-    G @ Y rides the MXU. Masked entries contribute 0.
+    G @ Y is one dense matmul. Masked entries contribute 0.
     """
     g = jnp.where(mask, gains, 0.0)
     C, k = gains.shape
@@ -67,7 +67,7 @@ def predict_daily(
 ) -> jnp.ndarray:
     """(C, S) gains x (S, D) station anomaly matrix -> (C, D) cell anomalies.
 
-    One MXU matmul replaces D per-cell lstsq solves.
+    One matmul replaces D per-cell lstsq solves.
     """
     return jnp.dot(G, stn_anoms, preferred_element_type=G.dtype,
                    precision=HI)
@@ -80,8 +80,8 @@ def predict_daily_gathered(
     stn_anoms: jnp.ndarray,  # (S, D)
 ) -> jnp.ndarray:
     """Scatter-free variant: gather each neighborhood's day rows and
-    contract. Trades the (C, S) scatter-add (slow irregular writes on TPU)
-    for a (C, k, D) gather + einsum. Preferable when k*D stays modest
+    contract. Trades the (C, S) scatter-add for a (C, k, D) gather +
+    einsum. Preferable when k*D stays modest
     (single-year chunks); the tile facade picks per configuration."""
     g = jnp.where(mask, gains, 0.0)
     rows = jnp.take(stn_anoms, idx, axis=0)          # (C, k, D)

@@ -40,12 +40,12 @@ def _cast_inputs(ti: TileInputs, dtype) -> TileInputs:
 def run_tile_f64(ti: TileInputs, params: InterpParams) -> TileResult:
     """The full tile interpolation in float64 on the CPU backend.
 
-    Forced off Pallas (CPU has no Mosaic path) and off packing; everything
-    else — including neighbor selection and the SPD kriging reduction — is
-    the same code the device runs, traced at f64.
+    Unpacked; everything else — including neighbor selection and the SPD
+    kriging reduction — is the same code the device runs, traced at f64
+    (float64 inputs take the XLA kriging chain on every platform).
     """
-    params64 = dataclasses.replace(params, use_pallas="off", dtype="float64")
-    cpu = jax.devices("cpu")[0]  # TPUs have no f64 — this mode is CPU-only
+    params64 = dataclasses.replace(params, dtype="float64")
+    cpu = jax.devices("cpu")[0]  # the reference side always runs on the CPU
     with jax.enable_x64(True), jax.default_device(cpu):
         ti64 = jax.tree.map(lambda x: jax.device_put(x), _cast_inputs(ti, np.float64))
         fn = jax.jit(functools.partial(interp_tile, params=params64))
@@ -56,7 +56,8 @@ def run_tile_f64(ti: TileInputs, params: InterpParams) -> TileResult:
 def compare_f32_f64(
     ti: TileInputs, params: InterpParams, day_valid=None
 ) -> dict:
-    """Run the tile path at f32 and f64 and report error statistics.
+    """Run the tile path at f32 on the default device (the production
+    path, kernels included) and at f64 on the CPU; report error statistics.
 
     Only cells both paths mark ok are compared (conditioning differences can
     legitimately flip min_neighbors/solve-failure flags on the boundary; the
@@ -67,8 +68,7 @@ def compare_f32_f64(
     them (the default when the layout is unknown) dilutes the daily RMSE
     toward the smaller normals error — pass the mask whenever the calendar
     is available so the 0.05 C parity bar judges real days only."""
-    params32 = dataclasses.replace(params, use_pallas="off")
-    f32 = jax.jit(functools.partial(interp_tile, params=params32))(
+    f32 = jax.jit(functools.partial(interp_tile, params=params))(
         _cast_inputs(ti, np.float32)
     )
     f64 = run_tile_f64(ti, params)

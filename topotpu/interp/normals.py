@@ -22,16 +22,15 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
-# Solve-chain matmuls must run at full f32 fidelity: the TPU MXU default
-# (bf16 inputs) costs DEGREES of error in the WLS/kriging chain (measured
-# 2.5-8.9 C vs the CPU oracle on the jnp fallback path) while these ops are
-# FLOP-trivial next to the Pallas kernels. No-op on CPU.
+# Solve-chain products must run at full f32 fidelity: on the GPU, XLA may
+# compute an unpinned f32 dot in TF32 (about 1e-3 relative), which costs
+# degrees of error in the WLS/kriging chain, while these products are
+# FLOP-trivial. No-op on CPU.
 HI = jax.lax.Precision.HIGHEST
 
 
-from topotpu.geo.distance import pairwise_km_from_xyz
 from topotpu.geo.neighbors import distance_weights
-from topotpu.kernels.cholesky import assemble_exp_cov, ok_solve
+from topotpu.kernels.ok_krige import ok_krige
 from topotpu.kernels.wls import batched_wls, center_design
 
 
@@ -56,129 +55,20 @@ def interp_cell_variogram(
     return jnp.stack([nug, psill, rng], axis=-1)
 
 
-def _use_pallas(flag: str) -> bool:
-    if flag == "on":
-        return True
-    if flag == "off":
-        return False
-    return jax.default_backend() == "tpu"
-
-
-def _result_from_rows(out, row0):
-    var = out[row0 + 1]
-    return NormalsResult(
-        normal=out[row0 + 0],
-        variance=var,
-        se=jnp.sqrt(jnp.maximum(var, 0.0)),
-        trend=out[row0 + 3],
-        ok=out[row0 + 2] > 0.5,
-        vario=jnp.stack(
-            [out[row0 + 4], out[row0 + 5], out[row0 + 6]], axis=-1
-        ),
-    )
-
-
-def _krig_normals_fused(
-    dist, mask, nbr_xyz, nbr_cov, cell_cov, nbr_norm, nbr_vario,
-    ridge, jitter_frac, min_neighbors,
-    anom_cov=None, cell_anom_cov=None, weight_kernel="bisquare",
-):
-    """Whole-chain fusion via kernels/pallas_krig.krig_normals_fused —
-    weights/design/WLS/variogram-interp/kriging (+ optional anomaly-GWR
-    gain rows) in one kernel, no intermediate HBM tensors.
-
-    Returns (NormalsResult, gains (C, k) or None)."""
-    from topotpu.kernels.pallas_krig import (
-        krig_normals_fused,
-        padded_kernel_k,
-    )
-
-    C_cells, k = dist.shape
-    k_eff = padded_kernel_k(k)
-    if k_eff != k:
-        # pad the neighbor axis with masked (inert) slots: Mosaic compiles
-        # k in (33, 55) pathologically slowly (see padded_kernel_k)
-        padk = lambda a: jnp.pad(  # noqa: E731
-            a, ((0, 0), (0, k_eff - k)) + ((0, 0),) * (a.ndim - 2)
-        )
-        dist, nbr_norm = padk(dist), padk(nbr_norm)
-        mask = padk(mask.astype(jnp.float32)) > 0.5
-        nbr_xyz, nbr_cov, nbr_vario = map(padk, (nbr_xyz, nbr_cov, nbr_vario))
-        if anom_cov is not None:
-            anom_cov = padk(anom_cov)
-    q = nbr_cov.shape[-1]
-    t3 = lambda a: jnp.transpose(a, (2, 1, 0)).reshape(  # noqa: E731
-        a.shape[2] * k_eff, C_cells
-    )  # (C, k, q) -> (qk, C), covariate-major rows
-
-    want_gains = anom_cov is not None
-    if not want_gains:  # minimal dummy anomaly design (its output is unused)
-        anom_cov = nbr_cov[..., :1]
-        cell_anom_cov = cell_cov[..., :1]
-    qa = anom_cov.shape[-1]
-
-    xyz3k = t3(nbr_xyz)
-    covs = t3(nbr_cov)
-    vario = t3(nbr_vario)
-    acovs = t3(anom_cov)
-    cell8 = (
-        jnp.zeros((8, C_cells), dist.dtype)
-        .at[:q, :].set(cell_cov.T)
-        .at[q : q + qa, :].set(cell_anom_cov.T)
-    )
-
-    pad = (-C_cells) % 128
-    if pad:
-        padc = lambda a: jnp.pad(a, ((0, 0), (0, pad)))  # noqa: E731
-        xyz3k, covs, vario, cell8, acovs = map(
-            padc, (xyz3k, covs, vario, cell8, acovs)
-        )
-        dist_t = padc(dist.T)
-        mask_t = padc(mask.T.astype(jnp.float32))
-        norm_t = padc(nbr_norm.T)
-    else:
-        dist_t = dist.T
-        mask_t = mask.T.astype(jnp.float32)
-        norm_t = nbr_norm.T
-
-    # forcing use_pallas="on" off-TPU runs the interpreter (tests only)
-    interpret = jax.default_backend() != "tpu"
-    out = krig_normals_fused(
-        xyz3k, dist_t, mask_t, covs, cell8, norm_t, vario, acovs,
-        ridge=ridge, jitter_frac=jitter_frac, min_neighbors=min_neighbors,
-        weight_kernel=weight_kernel,
-        interpret=interpret,
-    )
-    out = out[:, :C_cells]
-    res = _result_from_rows(out, 0)
-    gains = out[8 : 8 + k].T if want_gains else None  # drop padded rows
-    return res, gains
-
-
 def krig_normals_and_gains(
     dist, mask, nbr_xyz, nbr_cov, cell_cov, nbr_norm, nbr_vario,
     anom_cov, cell_anom_cov,
     weight_kernel="bisquare", ridge=1e-6, jitter_frac=1e-5,
-    min_neighbors=3, use_pallas="auto",
+    min_neighbors=3,
 ):
-    """krig_normals + anomaly-GWR gain rows over the SAME neighborhoods.
+    """krig_normals + anomaly-GWR gain rows over the SAME neighborhoods."""
+    from topotpu.interp.anoms import anomaly_gain_rows
 
-    On TPU this is one fused kernel; otherwise it composes the jnp paths
-    (kernels.wls.batched_gwr_gain)."""
-    if _use_pallas(use_pallas):
-        return _krig_normals_fused(
-            dist, mask, nbr_xyz, nbr_cov, cell_cov, nbr_norm, nbr_vario,
-            ridge, jitter_frac, min_neighbors,
-            anom_cov=anom_cov, cell_anom_cov=cell_anom_cov,
-            weight_kernel=weight_kernel,
-        )
     res = krig_normals(
         dist, mask, nbr_xyz, nbr_cov, cell_cov, nbr_norm, nbr_vario,
         weight_kernel=weight_kernel, ridge=ridge, jitter_frac=jitter_frac,
-        min_neighbors=min_neighbors, use_pallas="off",
+        min_neighbors=min_neighbors,
     )
-    from topotpu.interp.anoms import anomaly_gain_rows
-
     gains = anomaly_gain_rows(
         dist, mask, anom_cov, cell_anom_cov,
         weight_kernel=weight_kernel, ridge=ridge,
@@ -198,7 +88,6 @@ def krig_normals(
     ridge: float = 1e-6,
     jitter_frac: float = 1e-5,
     min_neighbors: int = 3,
-    use_pallas: str = "auto",
 ) -> NormalsResult:
     """Regression-krige monthly normals for a batch of cells.
 
@@ -209,13 +98,6 @@ def krig_normals(
       nbr_norm: (C, k) neighbor station monthly normals.
       nbr_vario: (C, k, 3) per-station (nugget, psill, range).
     """
-    if _use_pallas(use_pallas):
-        res, _ = _krig_normals_fused(
-            dist, mask, nbr_xyz, nbr_cov, cell_cov, nbr_norm, nbr_vario,
-            ridge, jitter_frac, min_neighbors, weight_kernel=weight_kernel,
-        )
-        return res
-
     w = distance_weights(dist, mask, weight_kernel)
 
     # --- GWR trend (the reference's trend surface) ---
@@ -228,19 +110,8 @@ def krig_normals(
     # --- per-cell variogram params (interpolated, not refit: SURVEY §3.3) ---
     vario = interp_cell_variogram(nbr_vario, w)
 
-    # --- ordinary kriging of residuals --- (the Pallas route returned at
-    # the top of the function; this is the jnp/f64/CPU fallback path)
-    dist_pair = pairwise_km_from_xyz(nbr_xyz, nbr_xyz)
-    C, c0, sill = assemble_exp_cov(
-        dist_pair,
-        dist,
-        vario[..., 0],
-        vario[..., 1],
-        vario[..., 2],
-        mask,
-        jitter_frac=jitter_frac,
-    )
-    sol = ok_solve(C, c0, mask, sill, min_neighbors)
+    # --- ordinary kriging of residuals ---
+    sol = ok_krige(nbr_xyz, dist, mask, vario, jitter_frac, min_neighbors)
     resid_krig = jnp.sum(sol.weights * resid, axis=-1)
 
     normal = trend_cell + resid_krig

@@ -22,7 +22,6 @@ from __future__ import annotations
 import os
 import pathlib
 
-import h5py
 import numpy as np
 
 from topotpu.core.grid import GridSpec
@@ -95,6 +94,8 @@ class TileWriter:
         self.dates = dates
         self.pack = pack
         self.compress = compress
+        import h5py
+
         self._f = h5py.File(self.tmp, "w")
         self._init_coords()
 
@@ -235,6 +236,8 @@ class MosaicWriter:
         tile_cols: int,
         compress: int = 0,
     ):
+        import h5py
+
         self.path = pathlib.Path(path)
         self.var = var
         ndays = len(dates)
@@ -388,6 +391,8 @@ def build_virtual_mosaic(
     All shards must be finalized (``complete``); raises otherwise. Returns
     {"n_tiles": total, "reconciled": all-shards-reconciled}.
     """
+    import h5py
+
     dst = pathlib.Path(dst)
     P = len(shard_paths)
     n_tiles = 0
@@ -490,5 +495,7 @@ def read_slice(dset, sl=Ellipsis) -> np.ndarray:
 
 def read_var(path, name: str) -> np.ndarray:
     """Read a variable back, applying unpack + fill semantics."""
+    import h5py
+
     with h5py.File(path, "r") as f:
         return read_slice(f[name])

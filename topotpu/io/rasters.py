@@ -13,7 +13,6 @@ import dataclasses
 import os
 import pathlib
 
-import h5py
 import numpy as np
 
 from topotpu.core.grid import GridSpec
@@ -39,6 +38,8 @@ class RasterStack:
     def save(self, path: str | pathlib.Path):
         path = pathlib.Path(path)
         tmp = path.with_suffix(path.suffix + ".tmp")
+        import h5py
+
         with h5py.File(tmp, "w") as f:
             for k in ("lon0", "lat0", "cellsize"):
                 f.attrs[k] = getattr(self.grid, k)
@@ -55,6 +56,8 @@ class RasterStack:
 
     @classmethod
     def load(cls, path: str | pathlib.Path) -> "RasterStack":
+        import h5py
+
         with h5py.File(path, "r") as f:
             grid = GridSpec(
                 lon0=float(f.attrs["lon0"]),

@@ -23,7 +23,6 @@ from __future__ import annotations
 import os
 import pathlib
 
-import h5py
 import numpy as np
 
 from topotpu.core import constants as C
@@ -36,6 +35,8 @@ class StationDB:
 
     def __init__(self, path: str | pathlib.Path, mode: str = "r"):
         self.path = pathlib.Path(path)
+        import h5py
+
         self._f = h5py.File(self.path, mode)
 
     # ---------- construction ----------

@@ -73,7 +73,7 @@ def tile_inputs_from_world(
     stn_vario: np.ndarray | None = None,
 ):
     """Build a device-facing TileInputs from a SyntheticWorld (shared by
-    bench.py, __graft_entry__.py and integration tests)."""
+    bench.py, chip_smoke.py and integration tests)."""
     import jax.numpy as jnp
 
     from topotpu.core.dates import DaysMetadata

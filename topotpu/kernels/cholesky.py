@@ -4,10 +4,10 @@ Parity target: the kriging system assembly + solve the reference delegates to
 R gstat's ``krige`` through rpy2 (``twx/interp/interp_tair.py::KrigTair``,
 SURVEY.md §2.12 and the BASELINE mandate to delete the R bridge).
 
-TPU-first formulation: gstat solves the (k+1)x(k+1) *indefinite* augmented
+Formulation: gstat solves the (k+1)x(k+1) *indefinite* augmented
 ordinary-kriging system (Lagrange multiplier row). Indefinite systems need LU;
-SPD systems get Cholesky, which XLA batches well and Pallas can fuse. So we
-use the classical simple-kriging reduction, which is algebraically identical
+SPD systems get Cholesky, which batches well and fits one warp per system in
+a hand kernel (``kernels/ok_krige.py``). So we use the classical simple-kriging reduction, which is algebraically identical
 to the augmented system but touches only the SPD covariance C:
 
     C a = c0,   C u = 1
@@ -26,6 +26,8 @@ from typing import NamedTuple
 
 import jax.numpy as jnp
 from jax import lax
+
+from topotpu.geo.distance import pairwise_km_from_xyz
 
 
 class OKSolution(NamedTuple):
@@ -112,3 +114,25 @@ def ok_solve(
     var = sill - jnp.sum(lam * c0, axis=-1) + t
     var = jnp.maximum(var, 0.0)
     return OKSolution(weights=lam, variance=var, ok=solvable)
+
+
+def ok_krige_xla(
+    nbr_xyz: jnp.ndarray,
+    dist: jnp.ndarray,
+    mask: jnp.ndarray,
+    vario: jnp.ndarray,
+    jitter_frac: float = 1e-5,
+    min_neighbors: int = 3,
+) -> OKSolution:
+    """Pair distances + covariance assembly + ``ok_solve`` in plain jnp.
+
+    nbr_xyz (B, k, 3) unit-sphere neighbor coordinates, dist (B, k) km to
+    the prediction point, mask (B, k), vario (B, 3) nugget/psill/range. The
+    reference semantics of the fused CUDA solve (``kernels/ok_krige.py``).
+    """
+    dist_pair = pairwise_km_from_xyz(nbr_xyz, nbr_xyz)
+    C, c0, sill = assemble_exp_cov(
+        dist_pair, dist, vario[..., 0], vario[..., 1], vario[..., 2], mask,
+        jitter_frac=jitter_frac,
+    )
+    return ok_solve(C, c0, mask, sill, min_neighbors)

@@ -5,38 +5,57 @@ Parity target: the GWR solves inside ``twx/interp/interp_tair.py`` —
 (SURVEY.md §2.12-2.13). The reference calls numpy lstsq once per cell per
 day/month; here one batched solve covers a whole tile of cells, and the
 daily-anomaly path is reduced to a *gain row* per (cell, month) so that all
-days become a single MXU matmul (see ``topotpu.interp.anoms``).
+days become a single matmul (see ``topotpu.interp.anoms``).
 
 Shapes: X (B, k, p) design, y (B, k) targets, w (B, k) weights (0 = masked).
-p is tiny (<= 8); the normal-equations route keeps everything in registers and
-turns the batch into (B, p, p) solves XLA handles well on TPU.
+p is tiny (<= 8): each system is a few fused elementwise loops over its k
+rows (``_qr``), with no batched solver library call.
 """
 
 from __future__ import annotations
 
 from typing import Tuple
 
-import jax
 import jax.numpy as jnp
 
-# Solve-chain matmuls must run at full f32 fidelity: the TPU MXU default
-# (bf16 inputs) costs DEGREES of error in the WLS/kriging chain (measured
-# 2.5-8.9 C vs the CPU oracle on the jnp fallback path) while these ops are
-# FLOP-trivial next to the Pallas kernels. No-op on CPU.
-HI = jax.lax.Precision.HIGHEST
 
-from jax import lax
+def _qr(X: jnp.ndarray, w: jnp.ndarray, ridge: float, extra=()):
+    """Modified Gram-Schmidt QR of the ridge-augmented weighted design.
 
+    Z = [sqrt(w) X; sqrt(lam) I] with lam = ridge * tr(X^T W X) / p, so
+    Z^T Z is the ridge-regularised normal matrix while Z's condition number
+    is the square root of it (the normal equations square it, which costs
+    f32 digits when covariates are near-collinear). ``extra`` are (B, k)
+    right-hand sides swept through the same projections. Columns are
+    unrolled over the static p (<= 8) as elementwise operations: XLA fuses
+    them, and every system is computed by the same instructions whatever
+    the batch size, so sharding the batch cannot change a result.
 
-def _normal_eq(X: jnp.ndarray, w: jnp.ndarray, ridge: float) -> jnp.ndarray:
-    """A = X^T diag(w) X + ridge * tr-scaled I, shape (B, p, p)."""
-    Xw = X * w[..., :, None]
-    A = jnp.einsum("bkp,bkq->bpq", Xw, X, precision=HI)
+    Returns (Q, R, qe): Q (p columns of (B, k + p)), R[i][j] (B,) for
+    j >= i, qe (Q^T e for each extra right-hand side, p entries each)."""
+    s = jnp.sqrt(w)
     p = X.shape[-1]
-    # Scale the ridge by the mean diagonal so conditioning is unit-free.
-    diag_mean = jnp.trace(A, axis1=-2, axis2=-1)[..., None, None] / p
-    eye = jnp.eye(p, dtype=X.dtype)
-    return A + (ridge * diag_mean + 1e-30) * eye
+    Z = X * s[..., None]
+    lam = ridge * jnp.sum(Z * Z, axis=(-2, -1)) / p + 1e-30
+    pad = jnp.sqrt(lam)[..., None, None] * jnp.eye(p, dtype=X.dtype)  # (B, p, p)
+    cols = [jnp.concatenate([Z[..., j], pad[..., j]], axis=-1)
+            for j in range(p)]
+    rhs = [jnp.concatenate([e * s, jnp.zeros_like(pad[..., 0])], axis=-1)
+           for e in extra]
+    R = [[None] * p for _ in range(p)]
+    qe = [[None] * p for _ in rhs]
+    Q = []
+    for j in range(p):
+        R[j][j] = jnp.sqrt(jnp.sum(cols[j] * cols[j], axis=-1))
+        q = cols[j] / R[j][j][..., None]
+        Q.append(q)
+        for l in range(j + 1, p):
+            R[j][l] = jnp.sum(q * cols[l], axis=-1)
+            cols[l] = cols[l] - R[j][l][..., None] * q
+        for n, r in enumerate(rhs):
+            qe[n][j] = jnp.sum(q * r, axis=-1)
+            rhs[n] = r - qe[n][j][..., None] * q
+    return Q, R, qe
 
 
 def batched_wls(
@@ -45,18 +64,18 @@ def batched_wls(
     w: jnp.ndarray,
     ridge: float = 1e-6,
 ) -> jnp.ndarray:
-    """Solve the weighted least-squares normal equations per batch element.
+    """Solve the ridge-regularised weighted least-squares problem per batch
+    element (the normal equations' solution, computed by QR).
 
     Returns beta (B, p). Masked rows must carry w == 0 and contribute nothing.
     """
-    A = _normal_eq(X, w, ridge)
-    b = jnp.einsum("bkp,bk->bp", X * w[..., :, None], y, precision=HI)
-    L = jnp.linalg.cholesky(A)
-    z = lax.linalg.triangular_solve(L, b[..., None], left_side=True, lower=True)
-    beta = lax.linalg.triangular_solve(
-        L, z, left_side=True, lower=True, transpose_a=True
-    )
-    return beta[..., 0]
+    _, R, (qy,) = _qr(X, w, ridge, extra=(y,))
+    p = X.shape[-1]
+    beta = [None] * p
+    for i in reversed(range(p)):
+        acc = qy[i] - sum(R[i][m] * beta[m] for m in range(i + 1, p))
+        beta[i] = acc / R[i][i]
+    return jnp.stack(beta, axis=-1)
 
 
 def batched_gwr_gain(
@@ -71,16 +90,20 @@ def batched_gwr_gain(
     geometry — not on the day — computing g once makes every daily-anomaly
     prediction a dot product, and a month of days one matmul. This is the
     restructuring that moves the reference's hot loop #3 (SURVEY.md §3.1,
-    ~25k days x 1e7 cells of per-cell lstsq) onto the MXU.
+    ~25k days x 1e7 cells of per-cell lstsq) into dense matmuls.
+
+    With sqrt(W) X = Q R (ridge rows below): g = sqrt(w) * (Q t), where
+    R^T t = x0.
     """
-    A = _normal_eq(X, w, ridge)
-    L = jnp.linalg.cholesky(A)
-    z = lax.linalg.triangular_solve(L, x0[..., None], left_side=True, lower=True)
-    v = lax.linalg.triangular_solve(
-        L, z, left_side=True, lower=True, transpose_a=True
-    )[..., 0]
-    # g_k = w_k * (x_k . v)
-    return w * jnp.einsum("bkp,bp->bk", X, v, precision=HI)
+    Q, R, _ = _qr(X, w, ridge)
+    p = X.shape[-1]
+    t = []
+    for i in range(p):
+        t.append((x0[..., i] - sum(R[m][i] * t[m] for m in range(i)))
+                 / R[i][i])
+    k = X.shape[-2]
+    g = sum(Q[i][..., :k] * t[i][..., None] for i in range(p))
+    return jnp.sqrt(w) * g
 
 
 def center_design(

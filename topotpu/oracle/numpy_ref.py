@@ -13,7 +13,7 @@ shared bug cannot hide:
   Jacobians instead of hand-derived Gauss-Newton.
 
 Everything here is float64, per-point, loop-based — the test-time ground
-truth for the batched f32 TPU kernels (SURVEY.md §4 test plan).
+truth for the batched f32 device kernels (SURVEY.md §4 test plan).
 """
 
 from __future__ import annotations

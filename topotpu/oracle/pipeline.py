@@ -17,11 +17,18 @@ import numpy as np
 from topotpu.oracle.numpy_ref import haversine_km, ok_krige_augmented
 
 
-def bisquare_weights(dist, bandwidth_scale=1.0):
+def kernel_weights(dist, kernel="bisquare", bandwidth_scale=1.0):
+    """Adaptive-bandwidth weights over one neighborhood's distances, the
+    three kernels of ``geo.neighbors.distance_weights``."""
     bw = max(dist.max() * bandwidth_scale, 1e-3)
-    r = np.minimum(dist / bw, 1.0)
-    w = (1.0 - r**2) ** 2
-    return np.maximum(w, 1e-4)
+    if kernel == "bisquare":
+        r = np.minimum(dist / bw, 1.0)
+        return np.maximum((1.0 - r**2) ** 2, 1e-4)
+    if kernel == "gaussian":
+        return np.exp(-0.5 * (dist / bw) ** 2)
+    if kernel == "uniform":
+        return np.ones_like(dist)
+    raise ValueError(f"unknown kernel {kernel!r}")
 
 
 def centered_wls_gain(cov_nbr, cov_pt, w, ridge=1e-6):
@@ -43,6 +50,48 @@ def centered_wls_gain(cov_nbr, cov_pt, w, ridge=1e-6):
     return w * (X @ v)
 
 
+def krige_normal(dist, dpair, cov_nbr, cov_pt, norm_nbr, vario_nbr,
+                 weight_kernel="bisquare", ridge=1e-6, jitter_frac=0.0):
+    """Regression-kriged normal at one point from its (valid) neighborhood.
+
+    dist (k,) km to the point, dpair (k, k) km between neighbors, cov_nbr
+    (k, q) / cov_pt (q,) trend covariates, norm_nbr (k,) station normals,
+    vario_nbr (k, 3) station nugget/psill/range. Returns a dict with
+    normal, variance, trend, weights (the neighbor weights) and vario.
+    """
+    w = kernel_weights(dist, weight_kernel)
+    # GWR trend via gain row (centered design): trend = g_t @ norms
+    g_t = centered_wls_gain(cov_nbr, cov_pt, w, ridge)
+    trend = float(g_t @ norm_nbr)
+    # residuals need beta at stations: recompute beta directly
+    d_c = cov_nbr - cov_pt[None, :]
+    wsum = w.sum() + 1e-30
+    mean = (w[:, None] * d_c).sum(0) / wsum
+    var = (w[:, None] * (d_c - mean) ** 2).sum(0) / wsum
+    scale = np.sqrt(var) + 1e-6
+    X = np.concatenate([np.ones((len(dist), 1)), d_c / scale], axis=1)
+    p = X.shape[1]
+    Xw = X * w[:, None]
+    A = Xw.T @ X
+    A += (ridge * np.trace(A) / p + 1e-30) * np.eye(p)
+    beta = np.linalg.solve(A, Xw.T @ norm_nbr)
+    resid = norm_nbr - X @ beta
+
+    # cell variogram params: weight-interpolated
+    vp = (w[:, None] * vario_nbr).sum(0) / wsum
+    nug, psill, rng_km = max(vp[0], 0.0), max(vp[1], 1e-6), max(vp[2], 1e-2)
+    pred_r, var_krig, lam = ok_krige_augmented(
+        dpair, dist, resid, nug, psill, rng_km, jitter_frac=jitter_frac
+    )
+    return {
+        "normal": trend + pred_r,
+        "variance": max(var_krig, 0.0),
+        "trend": trend,
+        "weights": w,
+        "vario": (nug, psill, rng_km),
+    }
+
+
 def interp_cell_month(
     cell_lon, cell_lat, cell_cov, cell_cov_anom,
     stn_lon, stn_lat, stn_cov, stn_cov_anom, stn_norm, stn_vario,
@@ -53,48 +102,19 @@ def interp_cell_month(
     ``stn_cov`` (S, q) trend covariates for this month; ``stn_vario`` (S, 3).
     """
     d_all = haversine_km(cell_lon, cell_lat, stn_lon, stn_lat)
+    # len(idx) = min(k, S): a pool smaller than k must not crash the oracle
     idx = np.argsort(d_all)[:k]
     dist = d_all[idx]
-    w = bisquare_weights(dist)
-
-    # GWR trend via gain row (centered design): trend = g_t @ norms
-    g_t = centered_wls_gain(stn_cov[idx], cell_cov, w, ridge)
-    trend = float(g_t @ stn_norm[idx])
-    # residuals need beta at stations: recompute beta directly
-    d_c = stn_cov[idx] - cell_cov[None, :]
-    wsum = w.sum() + 1e-30
-    mean = (w[:, None] * d_c).sum(0) / wsum
-    var = (w[:, None] * (d_c - mean) ** 2).sum(0) / wsum
-    scale = np.sqrt(var) + 1e-6
-    # len(idx) = min(k, S): a pool smaller than k must not crash the oracle
-    X = np.concatenate([np.ones((len(idx), 1)), d_c / scale], axis=1)
-    p = X.shape[1]
-    Xw = X * w[:, None]
-    A = Xw.T @ X
-    A += (ridge * np.trace(A) / p + 1e-30) * np.eye(p)
-    beta = np.linalg.solve(A, Xw.T @ stn_norm[idx])
-    resid = stn_norm[idx] - X @ beta
-
-    # cell variogram params: weight-interpolated
-    vp = (w[:, None] * stn_vario[idx]).sum(0) / wsum
-    nug, psill, rng_km = max(vp[0], 0.0), max(vp[1], 1e-6), max(vp[2], 1e-2)
-
     dpair = haversine_km(
         stn_lon[idx][:, None], stn_lat[idx][:, None],
         stn_lon[idx][None, :], stn_lat[idx][None, :],
     )
     np.fill_diagonal(dpair, 0.0)
-    pred_r, var_krig, lam = ok_krige_augmented(dpair, dist, resid, nug, psill, rng_km)
-
-    g_anom = centered_wls_gain(stn_cov_anom[idx], cell_cov_anom, w, ridge)
-    return {
-        "normal": trend + pred_r,
-        "variance": max(var_krig, 0.0),
-        "trend": trend,
-        "idx": idx,
-        "gain_anom": g_anom,
-        "vario": (nug, psill, rng_km),
-    }
+    res = krige_normal(dist, dpair, stn_cov[idx], cell_cov, stn_norm[idx],
+                       stn_vario[idx], ridge=ridge)
+    g_anom = centered_wls_gain(stn_cov_anom[idx], cell_cov_anom,
+                               res["weights"], ridge)
+    return {**res, "idx": idx, "gain_anom": g_anom}
 
 
 def interp_tile_oracle(world, cells_rc, k, stn_vario, month_of_day):

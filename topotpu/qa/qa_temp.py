@@ -20,7 +20,7 @@ spatial (needs neighbors):
     confirmed against nearest-neighbor anomaly differences)
 
 This stage stays on host (SURVEY.md §3.4): numpy over (S, T) matrices, a
-few seconds for the full network — not a TPU-shaped workload.
+few seconds for the full network — not a device-shaped workload.
 
 Flags are "sticky worst": a value once flagged by an earlier check is
 excluded from later statistics, mirroring the reference's sequential
@@ -132,7 +132,7 @@ def _duplicate_pairs(A: np.ndarray, min_common: int):
     unobserved.
 
     The pairwise test is recast as dense linear algebra (the same move the
-    TPU hot path makes — comparisons become matmuls): with x = hash(A)
+    interpolation hot path makes — comparisons become matmuls): with x = hash(A)
     masked to observed slots, G = x @ x.T sums hash products over COMMON
     slots, and E_ij = (x^2 @ m.T)_ij sums x_i^2 over the same slots. A true
     duplicate has x_j == x_i wherever both observed, so G == E termwise and

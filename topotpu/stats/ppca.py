@@ -4,7 +4,7 @@ Parity target: the reference's PPCA infill core — ``twx/infill/infill_daily.py
 (+ possibly R ``pcaMethods::ppca`` via rpy2) per SURVEY.md §2.8: for each
 target station, a matrix of correlated neighbor series with missing entries is
 completed by an EM loop over a low-rank latent model, yielding
-serially-complete daily series. BASELINE mandates a JAX EM/SVD loop on TPU.
+serially-complete daily series. BASELINE mandates a JAX EM/SVD loop.
 
 Algorithm (pcaMethods-style EM with iterative re-imputation):
 
@@ -14,7 +14,7 @@ Algorithm (pcaMethods-style EM with iterative re-imputation):
     impute:  missing entries of X <- (Z W^T)
 
 Everything is batched over B independent target-station problems at once —
-(B, T, V) tensors, all matmuls MXU-shaped — where the reference runs one
+(B, T, V) tensors, all dense batched matmuls — where the reference runs one
 station per MPI worker. Convergence is a relative change criterion inside
 ``lax.while_loop`` (no data-dependent Python control flow).
 """
@@ -26,10 +26,10 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
-# Solve-chain matmuls must run at full f32 fidelity: the TPU MXU default
-# (bf16 inputs) costs DEGREES of error in the WLS/kriging chain (measured
-# 2.5-8.9 C vs the CPU oracle on the jnp fallback path) while these ops are
-# FLOP-trivial next to the Pallas kernels. No-op on CPU.
+# Solve-chain products must run at full f32 fidelity: on the GPU, XLA may
+# compute an unpinned f32 dot in TF32 (about 1e-3 relative), which costs
+# degrees of error in the WLS/kriging chain, while these products are
+# FLOP-trivial. No-op on CPU.
 HI = jax.lax.Precision.HIGHEST
 
 from jax import lax

@@ -23,10 +23,10 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
-# Solve-chain matmuls must run at full f32 fidelity: the TPU MXU default
-# (bf16 inputs) costs DEGREES of error in the WLS/kriging chain (measured
-# 2.5-8.9 C vs the CPU oracle on the jnp fallback path) while these ops are
-# FLOP-trivial next to the Pallas kernels. No-op on CPU.
+# Solve-chain products must run at full f32 fidelity: on the GPU, XLA may
+# compute an unpinned f32 dot in TF32 (about 1e-3 relative), which costs
+# degrees of error in the WLS/kriging chain, while these products are
+# FLOP-trivial. No-op on CPU.
 HI = jax.lax.Precision.HIGHEST
 
 from jax import lax
